@@ -7,9 +7,9 @@ encode (row-sharded corpus, replicated merges, carry-composition
 collectives — blt_tpu/parallel/sharded.py) over meshes of increasing size
 and reports throughput per chip and efficiency vs the 1-device run.
 
-On a real pod slice, run one process per host after
+On a multi-host cluster, run one process per host after
 blt_tpu.parallel.distributed.initialize(); every host executes the same
-program. Without TPU hardware it validates the harness on virtual CPU
+program. Without accelerators it validates the harness on virtual CPU
 devices (XLA_FLAGS=--xla_force_host_platform_device_count=8), where the
 absolute numbers are meaningless but sharding, collectives, and
 bit-exactness are real.
@@ -51,7 +51,7 @@ _ALPHABET = b"etaoinshrdlu cmfwyp"
 
 def build_corpus_table(rng, n_rules: int = 200):
     """English-letter-frequency corpus alphabet + a merges table of its
-    most frequent pairs (the same workload shape bench.py uses)."""
+    most frequent pairs."""
     from blt_tpu.merges import MergeTable
 
     alphabet = np.frombuffer(_ALPHABET, np.uint8)
@@ -86,7 +86,6 @@ def run_processes(nproc: int, mb_total: float, merges_lines: str) -> dict:
         "import sys, time, json\n"
         "t0 = time.perf_counter()\n"
         "import jax\n"
-        "jax.config.update('jax_platforms','cpu')\n"
         "from blt_tpu.cli import main\n"
         "t1 = time.perf_counter()\n"
         "rc = main(sys.argv[1:])\n"
@@ -115,6 +114,8 @@ def run_processes(nproc: int, mb_total: float, merges_lines: str) -> dict:
                 env["PYTHONPATH"] = repo + os.pathsep + env.get(
                     "PYTHONPATH", ""
                 )
+                # host-engine processes: several per machine, none on a card
+                env["JAX_PLATFORMS"] = "cpu"
                 if nproc > 1:
                     env["BLT_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
                     env["BLT_NUM_PROCESSES"] = str(nproc)
@@ -249,8 +250,7 @@ def run_mesh_scaling(jax, mb_per_dev: float = 8.0, iters: int = 5,
 
     Returns one record per mesh size with bytes/s/chip and efficiency vs
     the 1-device run (compile excluded: the step is warmed before
-    timing). Callable from bench.py's extras so a real multi-chip
-    environment records scaling automatically. ``rowlocal`` swaps in the
+    timing). ``rowlocal`` swaps in the
     no-collective control variant (see module docstring).
     """
     from blt_tpu.ops.bpe_numpy import bpe_encode_flat

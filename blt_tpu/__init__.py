@@ -1,6 +1,6 @@
-"""blt_tpu — TPU-native byte-level tokenization framework.
+"""blt_tpu — byte-level tokenization framework on JAX accelerators.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities and bit-exact
+A from-scratch JAX/XLA rebuild with the capabilities and bit-exact
 output semantics of the reference Rust tokenizer (jtrefon/blt): three modes
 (basic byte->u16, pass-based greedy BPE, passthrough), content-type header
 tokens, streaming of arbitrarily large inputs under a memory cap, a CLI, and

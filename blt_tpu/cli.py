@@ -53,7 +53,7 @@ def _usize(value: str) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="blt",
-        description="TPU-native byte-level tokenizer (basic / BPE / passthrough)",
+        description="Byte-level tokenizer on JAX accelerators (basic / BPE / passthrough)",
     )
     p.add_argument("-i", "--input", metavar="FILE", default=None,
                    help="Input file path (or - for stdin)")
@@ -88,10 +88,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from blt_tpu.config import ContentType, CoreConfig, Engine
     from blt_tpu.pipeline.runner import run_tokenizer
     from blt_tpu.utils.logging import configure
-    from blt_tpu.utils.platform import apply_platform_override
 
     configure()
-    apply_platform_override()
     args = build_parser().parse_args(argv)
 
     try:

@@ -65,7 +65,7 @@ class Mode(enum.Enum):
 class Engine(enum.Enum):
     """Compute backend for the tokenization kernels.
 
-    AUTO picks the TPU/JAX device path for large inputs when an accelerator
+    AUTO picks the JAX device path for large inputs when an accelerator
     is present, and the NumPy host path otherwise (device dispatch latency
     dominates for tiny inputs).
     """

@@ -9,7 +9,7 @@ no code path in the reference handles it, SURVEY.md 2.1.8) is honored here:
 ``-`` means stdin/stdout explicitly.
 
 File input is zero-copy via ``np.memmap``; chunk slices view the page cache
-directly, the NumPy/TPU engines read straight out of the mapping.
+directly, the NumPy/JAX engines read straight out of the mapping.
 """
 
 from __future__ import annotations

@@ -17,9 +17,9 @@ The in-memory representation is ``MergeTable``: a dict with exactly the
 reference's ``BpeMerges = HashMap<(u16,u16),u16>`` shape (lib.rs:75), plus
 device-ready dense/sparse lookup arrays. Because file-loaded tables always
 have keys < 256 and values >= 256, they satisfy the *flat* property (merged
-tokens can never re-merge), which the TPU kernels exploit; the general
-multi-pass path covers arbitrary in-memory tables (e.g. hierarchical rules
-like (256,99)->257 used by tokenizer.rs:204-212 tests).
+tokens can never re-merge), which the single-pass device program exploits;
+the general multi-pass path covers arbitrary in-memory tables (e.g.
+hierarchical rules like (256,99)->257 used by tokenizer.rs:204-212 tests).
 """
 
 from __future__ import annotations
@@ -104,7 +104,7 @@ class MergeTable:
     ``flat`` means no rule *value* ever appears as a member of any rule *key*,
     so a merged token can never participate in a later merge. In that case the
     whole multi-pass reference algorithm (tokenizer.rs:63-86) provably
-    terminates after one merging pass, and the TPU kernel runs a single
+    terminates after one merging pass, and the device program runs a single
     parity-scan pass over raw bytes — exactly bit-equal to the reference run
     with chunk size >= input. File-loaded tables (keys < 256, values >= 256)
     are always flat.
@@ -155,332 +155,3 @@ class MergeTable:
 
     def __len__(self) -> int:
         return len(self.merges)
-
-    def build_packed_dense(self) -> np.ndarray:
-        """Dense value table packed two u16 values per int32 word.
-
-        word[k] = value(pair 2k) | value(pair 2k+1) << 16, with 0 meaning
-        "no rule" (legal sentinel: the Pallas path only handles tables whose
-        values are all >= 256). 32768 words = 128KB, VMEM-resident. Used by
-        the direct-lookup kernel mode for rule counts beyond the cuckoo
-        hash's practical size.
-        """
-        vals = np.where(self.dense == NO_RULE, 0, self.dense).astype(np.int64)
-        lo = vals[0::2]
-        hi = vals[1::2]
-        return ((lo | (hi << 16)) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-
-    def cuckoo_slots(self, min_slots: int = 256, max_slots: int = 8192) -> int:
-        """Smallest power-of-two slot count with cuckoo headroom (~0.65/2)."""
-        n = max(len(self.merges), 1)
-        slots = min_slots
-        while slots < max_slots and n > int(slots * 1.3):
-            slots *= 2
-        return slots
-
-    def build_cuckoo32(self, slots: int | None = None, max_seed_tries: int = 64):
-        """Memoizing wrapper over the cuckoo placement below.
-
-        Default-argument builds are cached on the table: every encoder's
-        supports()+__init__ pair would otherwise re-run the placement (up
-        to 64 seed tries) two or three times per stream.
-        """
-        default_call = slots is None and max_seed_tries == 64
-        if default_call:
-            if "_cuckoo32_memo" not in self.__dict__:
-                self.__dict__["_cuckoo32_memo"] = self._build_cuckoo32_impl()
-            return self.__dict__["_cuckoo32_memo"]
-        return self._build_cuckoo32_impl(slots, max_seed_tries)
-
-    def _build_cuckoo32_impl(
-        self, slots: int | None = None, max_seed_tries: int = 64
-    ):
-        """2-table cuckoo over 32-bit pair keys for the multipass token
-        kernel (general tables: keys may be any (u16,u16), e.g. hierarchical
-        rules like (256,99)->257).
-
-        Key = ``(a << 16) | b`` wrapped to int32, matching the device's
-        ``a * 65536 + b`` int32 arithmetic exactly. Keys and values live in
-        separate int32 planes so no packing limits the key range; empty
-        slots carry value -1, which no real rule can have (values are u16),
-        so a hit is ``key_plane == p AND value_plane >= 0``.
-
-        Returns (K1, V1, K2, V2, A1, A2) or None when placement fails.
-        """
-        if slots is None:
-            slots = self.cuckoo_slots()
-
-        def wrap32(x: int) -> int:
-            x &= 0xFFFFFFFF
-            return x - (1 << 32) if x >= 1 << 31 else x
-
-        rules = [
-            (wrap32((a << 16) | b), v) for (a, b), v in self.merges.items()
-        ]
-        if len(rules) > slots:  # 2-way cuckoo load limit ~0.5 of 2*slots
-            return None
-        rng = np.random.default_rng(0x32B17)
-        mask = slots - 1
-        shift = 32 - (slots.bit_length() - 1)
-        for _ in range(max_seed_tries):
-            a1 = int(rng.integers(1, 2**31)) | 1
-            a2 = int(rng.integers(1, 2**31)) | 1
-
-            def _hash(p: int, a: int) -> int:
-                return (wrap32(p * a) >> shift) & mask
-
-            t1: dict = {}
-            t2: dict = {}
-            ok = True
-            for key, val in rules:
-                k, v, which = key, val, 0
-                for _kick in range(256):
-                    if which == 0:
-                        slot = _hash(k, a1)
-                        if slot not in t1:
-                            t1[slot] = (k, v)
-                            break
-                        k2, v2 = t1[slot]
-                        t1[slot] = (k, v)
-                        k, v, which = k2, v2, 1
-                    else:
-                        slot = _hash(k, a2)
-                        if slot not in t2:
-                            t2[slot] = (k, v)
-                            break
-                        k2, v2 = t2[slot]
-                        t2[slot] = (k, v)
-                        k, v, which = k2, v2, 0
-                else:
-                    ok = False
-                    break
-            if ok:
-                k1 = np.zeros(slots, dtype=np.int32)
-                v1 = np.full(slots, -1, dtype=np.int32)
-                k2_ = np.zeros(slots, dtype=np.int32)
-                v2_ = np.full(slots, -1, dtype=np.int32)
-                for slot, (k, v) in t1.items():
-                    k1[slot] = k
-                    v1[slot] = v
-                for slot, (k, v) in t2.items():
-                    k2_[slot] = k
-                    v2_[slot] = v
-                return k1, v1, k2_, v2_, a1, a2
-        return None
-
-    def build_chd(self, max_slots: int = 8192):
-        """Memoizing wrapper over the CHD placement below."""
-        memo = self.__dict__.setdefault("_chd_memo", {})
-        if max_slots not in memo:
-            memo[max_slots] = self._build_chd_impl(max_slots)
-        return memo[max_slots]
-
-    def _build_chd_impl(
-        self,
-        max_slots: int = 8192,
-        seed_tries: int = 6,
-        perfect_tries: int = 64,
-    ):
-        """CHD (compress-hash-displace) perfect placement of byte-pair rules.
-
-        One hash table with NO probe alternatives: bucket hash g(p) picks a
-        displacement d from a B-entry array, and slot
-        ``h(p) = (((p*A2) >> shift) + d) & (slots-1)`` is collision-free by
-        construction, so the kernel does a single gather chain plus (for
-        B > 0) a short displacement gather — (slots + B)/128 chain steps
-        total vs the cuckoo's 2*slots/128, at ~0.98 load instead of <=0.5.
-        B = 0 means a plain injective multiply-shift hash was found (tiny
-        tables): no displacement array at all, one chain.
-
-        Candidate (slots, B) pairs are tried in increasing total-segment
-        order, so the first success is the cheapest lookup this placement
-        family can give. The seed budget per candidate scales inversely
-        with the O(n*slots) placement cost: tight candidates (high load,
-        few displacement buckets) are rare per seed but each gather
-        segment they save is worth ~7% of steady-state kernel time, so
-        small tables spend up to 256 seeds hunting the minimal placement
-        (a 500-rule table places at (512,128) = 5 segments in ~0.2s of
-        one-time, memoized build work — measured 17.0 -> 19+ GB/s on v5e)
-        while 8k-rule tables keep the old cheap budget. Hashes use the
-        same int32 wrap-around arithmetic as the device kernel (see
-        _build_cuckoo_impl).
-
-        Returns (entries int32[slots] packing key<<16|value, disp
-        int32[B] | None when B == 0, A1, A2, has_ffff) or None when no
-        candidate places (caller falls back to cuckoo / packed-dense).
-        """
-        assert self.flat, "CHD tables are built for flat byte-pair rules"
-        rules = [(a * 256 + b, v) for (a, b), v in self.merges.items()]
-        has_ffff = any(k == 0xFFFF and v == 0xFFFF for k, v in rules)
-        rules = [(k, v) for k, v in rules if not (k == 0xFFFF and v == 0xFFFF)]
-        n = len(rules)
-        if n > max_slots:
-            return None
-        s0 = 128
-        while s0 < n:
-            s0 *= 2
-        cands = []
-        s = s0
-        while s <= max_slots:
-            cands.append((s, 0))
-            b = 128
-            while b <= s:
-                cands.append((s, b))
-                b *= 2
-            s *= 2
-        cands.sort(key=lambda sb: sb[0] + sb[1])
-        rng = np.random.default_rng(0xC4D)
-        for slots, B in cands:
-            if B == 0:
-                tries = perfect_tries
-            else:
-                # ~1ms/seed at n*slots=256k (500 rules, 512 slots); cap the
-                # per-candidate search around ~0.3s of host work
-                tries = max(seed_tries, min(256, 200_000_000 // (n * slots)))
-            r = self._chd_place(rules, slots, B, rng, tries)
-            if r is not None:
-                entries, disp, a1, a2 = r
-                return entries, disp, a1, a2, has_ffff
-        return None
-
-    @staticmethod
-    def _chd_place(rules, slots: int, B: int, rng, tries: int):
-        """One (slots, B) placement attempt over ``tries`` hash seeds."""
-
-        def wrap32(x: int) -> int:
-            x &= 0xFFFFFFFF
-            return x - (1 << 32) if x >= 1 << 31 else x
-
-        mask = slots - 1
-        shift = 32 - (slots.bit_length() - 1)
-        bshift = 32 - (B.bit_length() - 1) if B else 0
-        keys = [k for k, _ in rules]
-        for _ in range(tries):
-            a1 = int(rng.integers(1, 2**31)) | 1
-            a2 = int(rng.integers(1, 2**31)) | 1
-            base = {k: wrap32(k * a2) >> shift for k in keys}
-            if B == 0:
-                # plain injective hash, no displacement
-                pos = {k: h & mask for k, h in base.items()}
-                if len(set(pos.values())) != len(keys):
-                    continue
-                entries = np.full(slots, -1, dtype=np.int32)
-                for k, v in rules:
-                    entries[pos[k]] = np.int32((np.int64(k) << 16) | v)
-                return entries, None, 1, a2
-            buckets: dict = {}
-            for k in keys:
-                g = (wrap32(k * a1) >> bshift) & (B - 1)
-                buckets.setdefault(g, []).append(k)
-            occupied = np.zeros(slots, dtype=bool)
-            disp = np.zeros(B, dtype=np.int32)
-            placement: dict = {}
-            ok = True
-            ds = np.arange(slots, dtype=np.int64)
-            for g, bk in sorted(buckets.items(), key=lambda kv: -len(kv[1])):
-                hs = np.array([base[k] for k in bk], dtype=np.int64)
-                if len(set((int(h) & mask) for h in hs)) != len(bk):
-                    ok = False  # intra-bucket base collision: no d separates
-                    break
-                # all displacements at once: d valid iff every (h+d)&mask free
-                pos_all = (hs[:, None] + ds[None, :]) & mask
-                valid = ~occupied[pos_all].any(axis=0)
-                d_idx = int(np.argmax(valid))
-                if not valid[d_idx]:
-                    ok = False
-                    break
-                disp[g] = d_idx
-                for k, q in zip(bk, (hs + d_idx) & mask):
-                    occupied[q] = True
-                    placement[k] = int(q)
-            if ok:
-                entries = np.full(slots, -1, dtype=np.int32)
-                for k, v in rules:
-                    entries[placement[k]] = np.int32((np.int64(k) << 16) | v)
-                return entries, disp, a1, a2
-        return None
-
-    def build_cuckoo(self, slots: int = 2048, max_seed_tries: int = 64):
-        """Memoizing wrapper (per slot count) over the placement below."""
-        if max_seed_tries == 64:
-            memo = self.__dict__.setdefault("_cuckoo_memo", {})
-            if slots not in memo:
-                memo[slots] = self._build_cuckoo_impl(slots)
-            return memo[slots]
-        return self._build_cuckoo_impl(slots, max_seed_tries)
-
-    def _build_cuckoo_impl(self, slots: int = 2048, max_seed_tries: int = 64):
-        """2-table cuckoo hash of byte-pair rules for the Pallas TPU kernel.
-
-        Returns (E1, E2, A1, A2, has_ffff) or None when placement fails
-        (table too loaded) — the caller falls back to the dense path.
-
-        Entries pack key and value into one int32: ``key << 16 | value``;
-        empty slots are -1 (key 0xFFFF, value 0xFFFF). The one ambiguous
-        rule (255,255)->65535 (its entry would equal the empty sentinel) is
-        reported via ``has_ffff`` and special-cased with an elementwise
-        check in the kernel. Hash: h(p) = ((p * A) >> (32 - log2(slots)))
-        & (slots - 1), computed identically in int32 on device (the top
-        bits of the wrapped multiply are well mixed; TPU vector units have
-        no gather-friendly hash beyond multiply-shift).
-        """
-        assert self.flat, "cuckoo tables are built for flat byte-pair rules"
-        rules = [
-            (a * 256 + b, v)
-            for (a, b), v in self.merges.items()
-        ]
-        has_ffff = any(k == 0xFFFF and v == 0xFFFF for k, v in rules)
-        rules = [(k, v) for k, v in rules if not (k == 0xFFFF and v == 0xFFFF)]
-        if len(rules) > (slots * 2) // 2:  # cuckoo 2-way load limit ~0.5
-            return None
-        rng = np.random.default_rng(0xB17)
-        mask = slots - 1
-        shift = 32 - (slots.bit_length() - 1)
-        for _ in range(max_seed_tries):
-            a1 = int(rng.integers(1, 2**31)) | 1
-            a2 = int(rng.integers(1, 2**31)) | 1
-
-            def _hash(p: int, a: int) -> int:
-                # int32 wrap-around multiply + arithmetic shift, matching the
-                # device computation exactly.
-                prod = (p * a) & 0xFFFFFFFF
-                if prod >= 1 << 31:
-                    prod -= 1 << 32
-                return (prod >> shift) & mask
-
-            h1 = lambda p: _hash(p, a1)
-            h2 = lambda p: _hash(p, a2)
-            t1 = {}
-            t2 = {}
-            ok = True
-            for key, val in rules:
-                k, v, which = key, val, 0
-                for _kick in range(256):
-                    if which == 0:
-                        slot = int(h1(k))
-                        if slot not in t1:
-                            t1[slot] = (k, v)
-                            break
-                        k2, v2 = t1[slot]
-                        t1[slot] = (k, v)
-                        k, v, which = k2, v2, 1
-                    else:
-                        slot = int(h2(k))
-                        if slot not in t2:
-                            t2[slot] = (k, v)
-                            break
-                        k2, v2 = t2[slot]
-                        t2[slot] = (k, v)
-                        k, v, which = k2, v2, 0
-                else:
-                    ok = False
-                    break
-            if ok:
-                e1 = np.full(slots, -1, dtype=np.int32)
-                e2 = np.full(slots, -1, dtype=np.int32)
-                for slot, (k, v) in t1.items():
-                    e1[slot] = np.int32((np.int64(k) << 16) | v)
-                for slot, (k, v) in t2.items():
-                    e2[slot] = np.int32((np.int64(k) << 16) | v)
-                return e1, e2, a1, a2, has_ffff
-        return None

@@ -4,7 +4,7 @@ The reference has no neural models — its unit of computation is the
 tokenization strategy (blt_core/src/tokenizer.rs). This module packages the
 device encode step as a model-like object: static config (merge table on
 device) + a pure jittable forward function, suitable for jit/sharding and
-the driver's compile checks (__graft_entry__).
+the compile check in __graft_entry__.entry().
 """
 
 from __future__ import annotations

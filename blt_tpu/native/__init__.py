@@ -1,7 +1,7 @@
-"""Native host engine bindings (ctypes over libbltnative.so).
+"""Native host engine bindings (ctypes over libbltnative.<key>.so, build.py).
 
-The TPU does the tokenization math; this library keeps the host side
-(basic-mode widening, passthrough copies, and the CPU fallback BPE scan)
+The device does the tokenization math; this library keeps the host side
+(basic-mode widening, passthrough copies, and the host engine's BPE scan)
 at multithreaded memory bandwidth — the stand-in for the reference's
 Rust+Tokio pipeline (reference: blt_core/src/pipeline.rs, io_handler.rs).
 The library self-builds on first load when g++ is available (disable
@@ -17,7 +17,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_LIB_PATH = os.path.join(os.path.dirname(__file__), "libbltnative.so")
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 
@@ -25,9 +24,9 @@ _load_failed = False
 def load() -> Optional[ctypes.CDLL]:
     """Load (or return cached) native library; None if unavailable.
 
-    ensure_built() runs unconditionally (its fresh-path cost is one mtime
-    stat) so a stale .so left behind by a source change is rebuilt rather
-    than silently loaded.
+    ensure_built() runs unconditionally (its fresh-path cost is one hash of
+    the source) so a library built from another source or with other flags
+    is rebuilt rather than silently loaded.
     """
     global _lib, _load_failed
     if _lib is not None or _load_failed:
@@ -57,24 +56,6 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int),  # carry_out
             ctypes.c_int,  # threads
         ]
-        lib.blt_filter_slots.restype = ctypes.c_size_t
-        lib.blt_filter_slots.argtypes = [
-            ctypes.c_void_p,  # slots
-            ctypes.c_size_t,  # n
-            ctypes.c_uint16,  # prev
-            ctypes.c_void_p,  # out
-            ctypes.POINTER(ctypes.c_uint16),  # last_out
-            ctypes.c_int,  # threads
-        ]
-        lib.blt_unpack_slots.restype = ctypes.c_size_t
-        lib.blt_unpack_slots.argtypes = [
-            ctypes.c_void_p,  # packed
-            ctypes.c_void_p,  # flags
-            ctypes.c_size_t,  # start
-            ctypes.c_size_t,  # n
-            ctypes.c_void_p,  # out
-            ctypes.c_int,  # threads
-        ]
         lib.blt_decode_size.restype = ctypes.c_int64
         lib.blt_decode_size.argtypes = [
             ctypes.c_void_p,  # wire
@@ -92,10 +73,7 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_int,  # threads
         ]
         _lib = lib
-    except (OSError, AttributeError):
-        # AttributeError: a stale prebuilt .so missing newer symbols (e.g.
-        # shipped before blt_decode_* existed, with no g++ to rebuild) —
-        # fall back to NumPy rather than crashing every native consumer.
+    except OSError:
         _load_failed = True
     return _lib
 
@@ -188,53 +166,3 @@ def decode_expand(
         blob.ctypes.data, out.ctypes.data, threads,
     )
     return out
-
-
-def unpack_slots(
-    packed: np.ndarray, flags: np.ndarray, n: int, threads: int,
-    start: int = 0,
-) -> memoryview:
-    """Expand the device-packed flat-BPE stream to the u16-BE wire bytes.
-
-    Mirror of blt_tpu.ops.bpe_pallas.unpack_slots_host (see
-    pack_slots_device for the format). Carry-free across batches;
-    ``start`` expands only positions [start, start+n) — the halo-sharded
-    drain's per-slab payload range.
-    """
-    lib = load()
-    assert lib is not None
-    if n == 0:
-        return memoryview(b"")
-    packed = np.ascontiguousarray(packed)
-    flags = np.ascontiguousarray(flags)
-    assert packed.shape[0] >= start + n
-    assert flags.shape[0] >= (start + n + 7) // 8
-    out = np.empty(2 * n, np.uint8)
-    count = lib.blt_unpack_slots(
-        packed.ctypes.data, flags.ctypes.data, start, n, out.ctypes.data,
-        threads,
-    )
-    return memoryview(out)[:count]
-
-
-def filter_slots_native(
-    slots: np.ndarray, prev_token: int, threads: int
-) -> Tuple[bytes, int]:
-    """Drop-after-merge drain over byteswapped-u16 slots (single C pass).
-
-    Mirror of blt_tpu.ops.bpe_pallas.filter_slots; returns the u16-BE wire
-    bytes directly plus the new prev_token.
-    """
-    lib = load()
-    assert lib is not None
-    slots = np.ascontiguousarray(slots, dtype=np.uint16)
-    n = slots.shape[0]
-    if n == 0:
-        return memoryview(b""), prev_token
-    out = np.empty(n, np.uint16)
-    last = ctypes.c_uint16(0)
-    count = lib.blt_filter_slots(
-        slots.ctypes.data, n, prev_token & 0xFFFF, out.ctypes.data,
-        ctypes.byref(last), threads,
-    )
-    return memoryview(out).cast("B")[: 2 * count], int(last.value)

@@ -1,20 +1,20 @@
 // Native host engine: multithreaded byte widening, copy, and flat-BPE scan.
 //
-// TPU-native stand-in for the reference's Rust+Tokio host pipeline
+// Host-side stand-in for the reference's Rust+Tokio host pipeline
 // (reference: blt_core/src/io_handler.rs mmap input, blt_core/src/pipeline.rs
-// chunk-parallel workers). The TPU does the heavy tokenization; this library
-// keeps the HOST side (feeding, draining, and the CPU fallback engine) at
+// chunk-parallel workers). The device does the heavy tokenization; this
+// library keeps the HOST side (feeding, draining, and the CPU engine) at
 // memory bandwidth with a plain pthread worker pool, exposed to Python via
 // ctypes (no pybind11 dependency).
 //
 // The flat-BPE kernel parallelizes the reference's sequential merge scan
 // (blt_core/src/tokenizer.rs:61-86) with the same carry decomposition the
-// Pallas/JAX kernels use: merge_start[i] = match[i] && !merge_start[i-1]
+// JAX device programs use: merge_start[i] = match[i] && !merge_start[i-1]
 // alternates over runs of matches, so each thread scans its range assuming
 // carry 0, records whether its initial run reaches its end, and the tiny
 // per-thread carry chain is resolved sequentially before output compaction.
 //
-// Build: see Makefile (g++ -O3 -shared -fPIC -pthread).
+// Build: python -m blt_tpu.native.build (g++ -O3 -shared -fPIC -pthread).
 
 #include <atomic>
 #include <cstdint>
@@ -386,188 +386,6 @@ void blt_decode_fill(const uint8_t* wire, size_t n_tokens,
         }
       },
       &ctx);
-}
-
-// Expand the device-packed flat-BPE stream (ops/bpe_pallas.py
-// pack_slots_device) back to the u16-BE wire: packed[i] holds position
-// i's emitted byte; flag bit i (LSB-first, 8 positions per flags byte)
-// distinguishes a merged-token half (emit the byte alone) from a raw
-// byte (emit 0x00 then the byte). Carry-free across batches by
-// construction. ``start`` is the first position to expand (the
-// halo-sharded drain expands only a slab's payload range [start,
-// start+n)). Returns the output byte count (= 2n - popcount(flags)).
-size_t blt_unpack_slots(const uint8_t* packed, const uint8_t* flags,
-                        size_t start, size_t n, uint8_t* out, int threads) {
-  if (n == 0) return 0;
-  struct Ctx {
-    const uint8_t* packed;
-    const uint8_t* flags;
-    uint8_t** starts;  // per-range output write pointers (prefix-resolved)
-    size_t per;
-    size_t start;
-  };
-  threads = clamp_threads(threads, n, 1 << 20);
-  // ranges sized in multiples of 8 positions; the global start offset may
-  // still be unaligned, so both passes handle ragged heads/tails. The
-  // split is computed ONCE here and dispatched explicitly — parallel_for
-  // derives its own (unaligned) split from n, which would disagree with
-  // this 8-aligned one and race ranges onto the same output pointer.
-  size_t per = (((n + threads - 1) / threads) + 7) & ~(size_t)7;
-  int active = (int)((n + per - 1) / per);
-  auto dispatch_ranges = [&](void (*fn)(size_t, size_t, void*), void* ctx) {
-    if (active <= 1) {
-      fn(0, n, ctx);
-      return;
-    }
-    std::vector<std::thread> pool;
-    for (int t = 0; t < active; ++t) {
-      size_t lo = (size_t)t * per;
-      size_t hi = lo + per < n ? lo + per : n;
-      pool.emplace_back(fn, lo, hi, ctx);
-    }
-    for (auto& th : pool) th.join();
-  };
-  std::vector<size_t> counts(active, 0);
-  // pass 1: flagged-bit count per range (output size = 2*len - flagged)
-  struct CountCtx {
-    const uint8_t* flags;
-    size_t* counts;
-    size_t per;
-    size_t start;
-  } cctx{flags, counts.data(), per, start};
-  dispatch_ranges(
-      [](size_t lo, size_t hi, void* p) {
-        auto* c = (CountCtx*)p;
-        int t = (int)(lo / c->per);
-        size_t cnt = 0;
-        size_t i = c->start + lo, end = c->start + hi;
-        for (; i < end && (i & 7); ++i)
-          cnt += (c->flags[i >> 3] >> (i & 7)) & 1;
-        for (; i + 8 <= end; i += 8)
-          cnt += (size_t)__builtin_popcount(c->flags[i >> 3]);
-        for (; i < end; ++i) cnt += (c->flags[i >> 3] >> (i & 7)) & 1;
-        c->counts[t] = cnt;
-      },
-      &cctx);
-  std::vector<uint8_t*> starts(active);
-  uint8_t* w0 = out;
-  for (int t = 0; t < active; ++t) {
-    size_t lo = (size_t)t * per;
-    size_t hi = lo + per < n ? lo + per : n;
-    starts[t] = w0;
-    w0 += 2 * (hi - lo) - counts[t];
-  }
-  Ctx ctx{packed, flags, starts.data(), per, start};
-  // pass 2: expand each range at its resolved offset
-  dispatch_ranges(
-      [](size_t lo, size_t hi, void* p) {
-        auto* c = (Ctx*)p;
-        int t = (int)(lo / c->per);
-        uint8_t* w = c->starts[t];
-        const uint8_t* s = c->packed;
-        size_t i = c->start + lo, end = c->start + hi;
-        for (; i < end && (i & 7); ++i) {
-          uint8_t f = (c->flags[i >> 3] >> (i & 7)) & 1;
-          *w = 0;
-          w += (f ^ 1);
-          *w++ = s[i];
-        }
-        for (; i + 8 <= end; i += 8) {
-          uint8_t fb = c->flags[i >> 3];
-          if (fb == 0) {
-            // 8 raw bytes -> 16 output bytes: interleave zeros (cf.
-            // blt_widen_be)
-            uint64_t v;
-            memcpy(&v, s + i, 8);
-            auto spread = [](uint64_t x) {
-              x = (x | (x << 16)) & 0x0000FFFF0000FFFFull;
-              x = (x | (x << 8)) & 0x00FF00FF00FF00FFull;
-              return x << 8;
-            };
-            uint64_t out0 = spread(v & 0xFFFFFFFFull);
-            uint64_t out1 = spread(v >> 32);
-            memcpy(w, &out0, 8);
-            memcpy(w + 8, &out1, 8);
-            w += 16;
-          } else {
-            for (int k = 0; k < 8; ++k) {
-              uint8_t f = (fb >> k) & 1;
-              *w = 0;
-              w += (f ^ 1);
-              *w++ = s[i + k];
-            }
-          }
-        }
-        for (; i < end; ++i) {
-          uint8_t f = (c->flags[i >> 3] >> (i & 7)) & 1;
-          *w = 0;
-          w += (f ^ 1);
-          *w++ = s[i];
-        }
-      },
-      &ctx);
-  size_t lastlo = (size_t)(active - 1) * per;
-  uint8_t* end = starts[active - 1] + 2 * (n - lastlo) - counts[active - 1];
-  return (size_t)(end - out);
-}
-
-int blt_native_version() { return 3; }
-
-}  // extern "C"
-
-extern "C" {
-
-// Drop-after-merge drain for the Pallas kernel's byteswapped-u16 slots
-// (see blt_tpu/ops/bpe_pallas.py): slot i is dropped when slot i-1 has a
-// nonzero low byte (i.e. original token >= 256). prev threads the rule
-// across batches. Output is the kept u16s verbatim (their LE memory image
-// is the u16-BE wire stream). Returns kept count; *last_out = final slot.
-size_t blt_filter_slots(const uint16_t* slots, size_t n, uint16_t prev,
-                        uint16_t* out, uint16_t* last_out, int threads) {
-  // The dependency is only on the PREVIOUS slot, so ranges parallelize
-  // with a one-element halo; counts resolve with a serial prefix pass.
-  struct Ctx {
-    const uint16_t* slots;
-    uint16_t* scratch;
-    size_t* counts;
-    size_t per;
-    size_t n;
-    uint16_t prev;
-  };
-  threads = clamp_threads(threads, n, 1 << 20);
-  if (n == 0) {
-    *last_out = prev;
-    return 0;
-  }
-  std::vector<uint16_t> scratch(n);
-  std::vector<size_t> counts(threads, 0);
-  size_t per = (n + threads - 1) / threads;
-  Ctx ctx{slots, scratch.data(), counts.data(), per, n, prev};
-  parallel_for(
-      threads, n,
-      [](size_t lo, size_t hi, void* p) {
-        auto* c = (Ctx*)p;
-        int t = (int)(lo / c->per);
-        uint16_t* w = c->scratch + lo;
-        size_t cnt = 0;
-        uint16_t pv = lo == 0 ? c->prev : c->slots[lo - 1];
-        for (size_t i = lo; i < hi; ++i) {
-          uint16_t s = c->slots[i];
-          if ((pv & 0xFF) == 0) w[cnt++] = s;
-          pv = s;
-        }
-        c->counts[t] = cnt;
-      },
-      &ctx);
-  uint16_t* w = out;
-  for (int t = 0; t < threads; ++t) {
-    size_t lo = (size_t)t * per;
-    if (lo >= n) break;
-    memcpy(w, scratch.data() + lo, counts[t] * sizeof(uint16_t));
-    w += counts[t];
-  }
-  *last_out = slots[n - 1];
-  return (size_t)(w - out);
 }
 
 }  // extern "C"

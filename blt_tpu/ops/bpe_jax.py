@@ -1,6 +1,6 @@
-"""JAX/XLA device kernels for tokenization (TPU compute path).
+"""JAX/XLA device programs for tokenization (the device compute path).
 
-TPU-native re-derivation of the reference's sequential merge scan
+Data-parallel re-derivation of the reference's sequential merge scan
 (reference: blt_core/src/tokenizer.rs:56-93). Two device paths:
 
 1. ``flat_encode`` — single parity-scan pass over raw bytes, exact for flat
@@ -131,8 +131,7 @@ def flat_encode(
 @jax.jit
 def tokens_to_be_bytes_device(tokens: jnp.ndarray) -> jnp.ndarray:
     """int32[N] token ids -> uint16[N] whose LE memory image is the u16-BE
-    wire stream (a byteswap, pure elementwise — interleave/stack lowerings
-    explode XLA TPU layouts)."""
+    wire stream (a byteswap, pure elementwise: no interleave or stack)."""
     swapped = ((tokens & 0xFF) << 8) | ((tokens >> 8) & 0xFF)
     return swapped.astype(jnp.uint16)
 
@@ -200,6 +199,13 @@ def multipass_encode(
     init = (data.astype(jnp.int32), length, jnp.bool_(True))
     tokens, out_len, _ = jax.lax.while_loop(cond, one_pass, init)
     return tokens, out_len
+
+
+# One chunk per row of a (B, N) batch: the multi-device engine's general-
+# table path (rows sharded over the mesh, tables replicated).
+multipass_encode_rows = jax.jit(
+    jax.vmap(multipass_encode, in_axes=(0, 0, None, None))
+)
 
 
 def dense_table_device(table: MergeTable) -> jnp.ndarray:

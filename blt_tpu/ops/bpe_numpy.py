@@ -17,8 +17,8 @@ merge/no-merge starting at the run head. So per pass:
 For *flat* tables (no merge value ever re-merges; all file-loaded tables,
 see blt_tpu.merges.MergeTable.flat) the multi-pass loop provably terminates
 after a single merging pass, so ``bpe_encode_flat`` does one parity scan over
-raw bytes. These same building blocks map 1:1 onto the JAX/Pallas device
-kernels in bpe_jax.py / bpe_pallas.py.
+raw bytes. These same building blocks map 1:1 onto the JAX device
+programs in bpe_jax.py.
 """
 
 from __future__ import annotations

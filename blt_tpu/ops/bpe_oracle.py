@@ -23,7 +23,7 @@ Properties pinned by the reference tests (tokenizer.rs:152-292):
 - newly merged tokens participate only on the NEXT pass;
 - merge values may collide with byte values and re-merge on later passes.
 
-Deliberately unoptimized: every fast implementation (NumPy, JAX, Pallas) is
+Deliberately unoptimized: every fast implementation (NumPy, native, JAX) is
 validated bit-for-bit against this function.
 """
 

@@ -23,8 +23,7 @@ Semantics (exact inverse of the encoder's, SURVEY.md 2.1):
 The kernel is a variable-length gather (np.repeat + cumsum indexing) —
 memory-bound host work with data-dependent output shape, which is exactly
 what XLA's static-shape model is worst at; the device adds nothing here,
-so decode runs on the host by design (the encoder's fixed-capacity Pallas
-machinery stays encode-only).
+so decode runs on the host by design.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference: blt_core/src/tokenizer.rs:136-145 ``PassthroughStrategy`` — the
 chunk is returned unchanged; with a content-type header the output is the
 2-byte header followed by a raw copy (lib.rs:254-263, tests/cli.rs:196-214).
 
-This is a host-only device-bypass path: round-tripping bytes through the TPU
+This is a host-only device-bypass path: round-tripping bytes through the device
 would only add PCIe traffic for an identity map.
 """
 

@@ -4,9 +4,9 @@ The reference is strictly single-node (SURVEY.md 2: no distributed
 backend). The BASELINE.json north star defines the multi-host shape:
 ``jax.distributed`` over a pod slice, corpus chunks sharded data-parallel
 across hosts, merges table replicated, boundary state and per-pair counts
-over ICI/DCN collectives.
+over collectives (NCCL between GPUs).
 
-Launch on each host (or let the TPU runtime auto-configure):
+Launch on each host:
 
     import blt_tpu.parallel.distributed as dist
     dist.initialize()                      # jax.distributed.initialize()
@@ -47,9 +47,8 @@ def initialize(
 ) -> None:
     """jax.distributed.initialize with idempotence and solo fallback.
 
-    With no arguments, relies on the TPU runtime's auto-bootstrap (the
-    standard path on Cloud TPU pods). Single-process environments are a
-    no-op, so code written for multi-host runs unchanged on one host.
+    With no arguments, relies on the cluster environment JAX detects
+    itself (e.g. SLURM). Single-process environments are a no-op, so code written for multi-host runs unchanged on one host.
     With an EXPLICIT coordinator address (the BLT_COORDINATOR_ADDRESS
     contract), failures re-raise — silently degrading an explicit
     multi-process launch to N independent solo runs would corrupt the

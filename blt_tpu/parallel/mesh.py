@@ -1,11 +1,11 @@
 """Device mesh construction for data-parallel tokenization.
 
 The reference's only parallelism is chunk-level data parallelism over a
-thread pool (reference: blt_core/src/pipeline.rs:86-100). The TPU-native
+thread pool (reference: blt_core/src/pipeline.rs:86-100). The device
 equivalent is a 1-D ``jax.sharding.Mesh`` with a ``data`` axis: corpus
 chunks are sharded row-wise across devices, the merges table is replicated
 (the Arc<BpeMerges> analog, lib.rs:277), and cross-chunk boundary state
-plus global statistics move over ICI collectives (psum / tiny gathers).
+plus global statistics move over device collectives (psum / tiny gathers).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ The reference is single-node (SURVEY.md 2: no distributed backend); the
 BASELINE.json north star defines the multi-host shape: corpus byte-ranges
 sharded across hosts, merges replicated, outputs assembled host-in-order.
 
-TPU-native design — communication is replaced by boundary *analysis*:
+Design — communication is replaced by boundary *analysis*:
 
 - **flat BPE**: a host boundary placed at position j where the straddling
   pair (b[j-1], b[j]) is NOT a merge rule is provably transparent — no
@@ -30,7 +30,7 @@ the whole run), then pwrite the spool at ``header + sum(counts[:h])``,
 so within budget every output byte crosses the filesystem exactly once.
 
 Launch: same CLI on every host with BLT_COORDINATOR_ADDRESS,
-BLT_NUM_PROCESSES, BLT_PROCESS_ID set (or Cloud TPU auto-bootstrap), e.g.
+BLT_NUM_PROCESSES, BLT_PROCESS_ID set, e.g.
 
     BLT_COORDINATOR_ADDRESS=host0:9876 BLT_NUM_PROCESSES=2 \
     BLT_PROCESS_ID=$RANK blt -i corpus.bin -o out.bin --merges m.txt

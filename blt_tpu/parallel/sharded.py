@@ -1,4 +1,4 @@
-"""Sharded (multi-chip) tokenization steps.
+"""Sharded (multi-device) tokenization steps.
 
 Corpus chunks are laid out as rows of a (B, N) batch sharded row-wise over
 the mesh's ``data`` axis; the merges table is replicated. Cross-row BPE
@@ -9,7 +9,7 @@ stitching — the reference's in-order shard assembler analog
 2. each row also computes its boundary carry-out for BOTH possible
    carry-in values, giving a boolean transfer function per row;
 3. an associative scan composes the B transfer functions (XLA moves only
-   2 bits per row over ICI), resolving every row's true carry-in;
+   2 bits per row over the device interconnect), resolving every row's true carry-in;
 4. rows finish start-resolution + compaction locally.
 
 This is exact: chained output equals the single-sequence reference result
@@ -102,8 +102,8 @@ def sharded_flat_encode(
     encoding of the concatenated input rows; threading ``carry_out`` into
     the next call's ``carry_in`` (with ``next_byte_last`` lookahead)
     extends that equality across an arbitrarily long stream of batches —
-    the multi-chip generalization of the single-device kernel's carry
-    protocol (ops/bpe_pallas.py).
+    the multi-device generalization of the single-device carry protocol
+    (ops/bpe_jax.flat_encode).
     """
     b, n = batch.shape
     carry_in = jnp.asarray(carry_in, jnp.bool_)

@@ -1,67 +1,35 @@
-"""Async host<->device pipeline stages (the TPU-native feeder).
+"""Async host<->device pipeline stages (the device feeder).
 
 The reference's L1/L2 is an async mmap -> worker-pool -> ordered-writer
 pipeline (reference: blt_core/src/pipeline.rs:56-131, io_handler.rs:51-76).
-Its TPU-native replacement decomposes a device tokenization run into three
+Its device replacement decomposes a device tokenization run into three
 overlapped stages, each on its own thread with bounded hand-off queues:
 
-  stage A (feed):   pack chunk into a reused pinned host buffer, upload,
-                    dispatch the kernel (serial carry chaining is natural
+  stage A (feed):   pack chunk into a host batch, upload, dispatch the
+                    device program (serial carry chaining is natural
                     because the stage is single-threaded)
   stage B (drain):  device->host transfer of finished batches + host
-                    post-pass (drop-after-merge filter)
+                    assembly of the wire stream
   stage C (write):  the runner's ordered writer thread
 
 End-to-end throughput is then max(stage) instead of sum(stage): upload of
-batch N+1 overlaps kernel N and the drain of batch N-1. ``prefetch_iter``
-is the single building block — it runs any generator on a worker thread
-with a bounded queue and exact exception propagation, so a pipeline is
-just function composition:
+batch N+1 overlaps compute of batch N and the drain of batch N-1.
+``prefetch_iter`` is the single building block — it runs any generator on a
+worker thread with a bounded queue and exact exception propagation, so a
+pipeline is just function composition:
 
     yield from prefetch_iter(drain_gen(prefetch_iter(feed_gen(chunks))))
-
-Buffers: host packing reuses a small pool of preallocated buffers; a
-buffer returns to the pool once its device transfer completes (verified
-with block_until_ready on the uploaded array *before* kernel dispatch, so
-the wait covers only the H2D copy, never compute).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-import time
-from typing import Callable, Iterable, Iterator, Optional, TypeVar
+from typing import Iterable, Iterator, TypeVar
 
 T = TypeVar("T")
 
 _SENTINEL = object()
-
-# Per-stage occupancy accounting (bench.py uses this to attribute e2e
-# stalls): for each named stage, cumulative seconds the worker spent
-# producing items (src_time), blocked handing off (put_wait), and the
-# consumer spent waiting on it (get_wait). Cheap (a few perf_counter
-# calls per *batch*), so always on.
-_STATS_LOCK = threading.Lock()
-_STAGE_STATS: dict = {}
-
-
-def _stat(name: str):
-    with _STATS_LOCK:
-        return _STAGE_STATS.setdefault(
-            name,
-            {"items": 0, "src_time": 0.0, "put_wait": 0.0, "get_wait": 0.0},
-        )
-
-
-def stage_stats(reset: bool = False) -> dict:
-    """Snapshot (and optionally reset) cumulative per-stage timings."""
-    with _STATS_LOCK:
-        snap = {k: dict(v) for k, v in _STAGE_STATS.items()}
-        if reset:
-            _STAGE_STATS.clear()
-    return snap
-
 
 class _Failure:
     __slots__ = ("exc",)
@@ -85,26 +53,16 @@ def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iter
         try:
             src = iter(it)
             while True:
-                t0 = time.perf_counter()
                 try:
                     item = next(src)
                 except StopIteration:
                     break
-                t1 = time.perf_counter()
                 while not abandoned.is_set():
                     try:
                         q.put(item, timeout=0.1)
                         break
                     except queue.Full:
                         continue
-                t2 = time.perf_counter()
-                # re-resolve the dict each time: stage_stats(reset=True)
-                # swaps the registry under live pipelines
-                stats = _stat(name)
-                with _STATS_LOCK:
-                    stats["items"] += 1
-                    stats["src_time"] += t1 - t0
-                    stats["put_wait"] += t2 - t1
                 if abandoned.is_set():
                     return
         except BaseException as e:  # propagate to consumer
@@ -127,11 +85,7 @@ def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iter
     t.start()
     try:
         while True:
-            t0 = time.perf_counter()
             item = q.get()
-            stats = _stat(name)
-            with _STATS_LOCK:
-                stats["get_wait"] += time.perf_counter() - t0
             if item is _SENTINEL:
                 return
             if isinstance(item, _Failure):
@@ -141,50 +95,13 @@ def prefetch_iter(it: Iterable[T], depth: int = 2, name: str = "feeder") -> Iter
         abandoned.set()
 
 
-class BufferPool:
-    """Fixed pool of reusable host buffers (numpy uint8, one shape)."""
-
-    def __init__(self, nbytes: int, count: int = 2):
-        import numpy as np
-
-        self._q: queue.Queue = queue.Queue()
-        for _ in range(count):
-            self._q.put(np.empty(nbytes, dtype=np.uint8))
-
-    def get(self):
-        return self._q.get()
-
-    def put(self, buf) -> None:
-        self._q.put(buf)
-
-
-def upload_owned(arr):
-    """Host array -> device array that OWNS its memory.
-
-    On accelerator backends a device_put always copies over the
-    interconnect; on the CPU backend jnp.asarray may alias the numpy
-    buffer zero-copy, which would let a reused feeder buffer corrupt an
-    in-flight batch — force a real copy there. Blocks until the transfer
-    completes so the caller may immediately reuse ``arr``.
-    """
-    import jax
-    import jax.numpy as jnp
-
-    if jax.default_backend() == "cpu":
-        dev = jnp.array(arr, copy=True)
-    else:
-        dev = jnp.asarray(arr)
-    jax.block_until_ready(dev)
-    return dev
-
-
 def pack_into(dst, src, threads: int = 0) -> None:
     """Copy ``src`` bytes into the head of ``dst`` (reused padded buffer).
 
     Uses the native multithreaded copy when built (the host-bandwidth
     analog of the reference's mmap zero-copy feed, io_handler.rs:54-56);
-    tail bytes beyond len(src) are left stale — every kernel masks by
-    explicit length, so no memset is needed.
+    tail bytes beyond len(src) are left stale — every device program masks
+    by explicit length, so no memset is needed.
     """
     import os
 

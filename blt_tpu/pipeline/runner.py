@@ -26,26 +26,14 @@ import numpy as np
 
 from blt_tpu.config import CoreConfig, Mode
 from blt_tpu.io.sources import OutputWriter, setup_io
-from blt_tpu.pipeline.engines import (
-    AutoStreamEngine,
-    JaxEngine,
-    ShardedJaxEngine,
-    select_engine,
-)
-from blt_tpu.utils.chunking import (
-    align_up,
-    get_effective_chunk_size,
-    mem_budget_bytes,
-)
+from blt_tpu.pipeline.engines import AutoStreamEngine, JaxEngine, select_engine
+from blt_tpu.utils.chunking import get_effective_chunk_size, mem_budget_bytes
 from blt_tpu.utils.logging import get_logger, span
 from blt_tpu.utils.profiling import maybe_profile
 
 log = get_logger("runner")
 
 DEVICE_BATCH_BYTES = 16 * 1024 * 1024
-# one Pallas kernel block (rows_per_block x lanes): capacities round up
-# to this, so equalized batches aligned to it upload/download zero pad
-_BATCH_ALIGN = 64 * 1024
 
 
 def _device_batch_bytes() -> int:
@@ -54,29 +42,14 @@ def _device_batch_bytes() -> int:
 
 
 def _plan_feed_size(total, chunk: int, dev: int) -> int:
-    """Device feed size for size-invariant modes: full batches + a
-    bucketed tail.
+    """Device feed size for size-invariant modes: full ``dev``-sized
+    batches, one shape shared by every large run, whatever the file size.
 
-    Two constraints compete. (1) Fixed-capacity encoders move their FULL
-    padded buffers both ways, so a partial batch pays the whole capacity
-    over the link: a 100MB file in 64MB batches used to move 64+128MB
-    for its 36MB tail (measured — the entire gap to the half-duplex link
-    bound, tools/exp_e2e.py). (2) Every DISTINCT batch size is a
-    distinct Mosaic compile (~10s remote), so r4's exact equalization —
-    batch = ceil(total/nb) aligned to one kernel block — minted a fresh
-    kernel shape for nearly every file size (the 11.7s cold start in
-    e2e_tpu_r4b, VERDICT r4 item 2).
-
-    Resolution: feed FULL ``dev``-sized batches (one shape, shared by
-    every large run) and let the engine route the final short chunk
-    through a LADDER-bucketed tail encoder (engines.bucket_feed, ~20
-    shapes total); a small file is itself one bucketed batch. Padding is
-    then at most one ladder step on the tail (<=1MB), while the compile
-    shape space is fixed and warmable once per machine.
+    Every distinct batch size is a distinct device compile, so the feed
+    size never follows ``total``: a small file is one short batch and a
+    large file's tail is one short final batch.
     """
-    # an explicit --chunksize may RAISE the batch size; ``total`` no
-    # longer shapes the feed — the ENGINE buckets every chunk (a small
-    # file is one bucketed batch, a large file's tail its own bucket)
+    # an explicit --chunksize may RAISE the batch size
     return max(dev, chunk)
 
 
@@ -143,26 +116,6 @@ def run_tokenizer(config: CoreConfig) -> None:
         if isinstance(engine, (JaxEngine, AutoStreamEngine)) and invariant_output:
             feed_size = _plan_feed_size(
                 src.size, effective_chunk_size, _device_batch_bytes()
-            )
-
-        warm_env = os.environ.get("BLT_WARMUP", "0")
-        if warm_env in ("1", "full") and isinstance(engine, ShardedJaxEngine):
-            # warm_shapes compiles the single-device programs; the sharded
-            # engine dispatches shard-mapped kernels with different shapes,
-            # so warming here would leave the first batch cold anyway
-            log.info("BLT_WARMUP: skipped (sharded engine programs are "
-                     "shard-mapped; not covered by the warmup grid)")
-        elif warm_env in ("1", "full") and isinstance(engine, JaxEngine):
-            from blt_tpu.warmup import warm_for_run
-
-            warm_for_run(
-                mode,
-                config.table() if mode == Mode.BPE else None,
-                feed_size,
-                _device_batch_bytes(),
-                config.num_threads,
-                full=warm_env == "full",
-                total_size=src.size,
             )
 
         chunks = src.chunks(feed_size)

@@ -66,7 +66,7 @@ def tokenize_bytes_wire(
         engine = engine.select(arr.size)
     chunks = iter([arr]) if arr.size else iter(())
     # Device engines bucket the encoder capacity to powers of two so a
-    # serving process reuses one compiled kernel per bucket instead of
+    # serving process reuses one compiled program per bucket instead of
     # recompiling per distinct payload size (engines.device_capacity_hint).
     hint = device_capacity_hint(arr.size, engine)
     if passthrough:
@@ -212,8 +212,7 @@ def make_server(
     are re-entrant per request since each request runs its own stream).
     engine="auto" applies the CLI's AUTO policy PER REQUEST: payloads
     below ``device_threshold`` (default engines.AUTO_DEVICE_THRESHOLD;
-    tune per deployment from the serving_r5 crossover decomposition)
-    stay on the host engine, larger ones use the accelerator when one
+    tune per deployment) stay on the host engine, larger ones use the accelerator when one
     exists.
     """
     table = None
@@ -254,10 +253,10 @@ def make_server(
 
 
 def _warmup(engine, table: Optional[MergeTable], max_bytes: int) -> None:
-    """Pre-compile the device kernels for every capacity bucket <= max_bytes.
+    """Pre-compile the device programs for every capacity bucket <= max_bytes.
 
     One tokenize per power-of-two bucket in the server's serving mode, so
-    the first real request of any size pays zero Mosaic/XLA compiles.
+    the first real request of any size pays zero XLA compiles.
     Always warms at least the floor bucket (every small request maps to
     it). Host engines have no compile step: nothing to warm.
     """
@@ -296,10 +295,7 @@ def _warmup(engine, table: Optional[MergeTable], max_bytes: int) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    from blt_tpu.utils.platform import apply_platform_override
-
     configure()
-    apply_platform_override()
     p = argparse.ArgumentParser(
         prog="blt-serve", description="HTTP tokenization service"
     )
@@ -319,7 +315,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         "use the accelerator, smaller ones the host "
                         "engine (default 32MB)")
     p.add_argument("--warmup", metavar="SIZE", default=None,
-                   help="Pre-compile device kernels for every payload "
+                   help="Pre-compile device programs for every payload "
                         "bucket up to SIZE (e.g. 16MB) before serving")
     args = p.parse_args(argv)
     from blt_tpu.utils.parsing import parse_chunk_size_str

@@ -46,9 +46,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
-    from blt_tpu.utils.platform import apply_platform_override
-
-    apply_platform_override()
     from blt_tpu.parallel.train import (
         learn_bpe,
         learn_bpe_sharded,

@@ -5,7 +5,7 @@ Reproduces the reference's effective-chunk-size policy
 [256KB, 128MB]; otherwise the size is derived from total RAM:
 ``clamp(RAM * memcap% / threads / 4, 1MB, 16MB)`` then re-clamped to the
 absolute bounds. The same numbers are kept for CLI conformance; the device
-planner below additionally aligns chunk sizes for TPU-friendly static shapes.
+planner below additionally aligns chunk sizes to static device shapes.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ DEFAULT_MAX_CHUNK_SIZE_BYTES = 16 * 1024 * 1024  # 16MB
 ABSOLUTE_MIN_CHUNK_SIZE = 256 * 1024  # 256KB
 ABSOLUTE_MAX_CHUNK_SIZE = 128 * 1024 * 1024  # 128MB
 
-# TPU lane width; device chunk buffers are padded to multiples of this so the
-# (8, 128)-tiled int32 layout never needs ragged tiles.
+# Device chunk buffers are padded to multiples of this, so the number of
+# distinct static shapes (one compile each) stays small.
 DEVICE_ALIGN = 1024
 
 
@@ -62,5 +62,5 @@ def align_up(n: int, align: int = DEVICE_ALIGN) -> int:
 
 
 def plan_device_chunk(chunk_size: int) -> int:
-    """Round a host chunk size up to a TPU-aligned static buffer size."""
+    """Round a host chunk size up to an aligned static buffer size."""
     return align_up(max(chunk_size, DEVICE_ALIGN))

@@ -1,6 +1,6 @@
 """Structured logging and timing spans.
 
-TPU-native stand-in for the reference's ``tracing`` subsystem
+Stand-in for the reference's ``tracing`` subsystem
 (reference: src/main.rs:83-85 installs a fmt subscriber driven by the
 ``RUST_LOG`` env filter; spans instrument every pipeline stage,
 e.g. blt_core/src/pipeline.rs:148,348 ``info_span!("process_chunk_task")``).

@@ -1,6 +1,6 @@
 """JAX profiler integration.
 
-TPU-native analog of the reference's tracing/Criterion observability gap
+Analog of the reference's tracing/Criterion observability gap
 (SURVEY.md 5: the reference's only profiling is RUST_LOG spans + Criterion;
 the rebuild adds real device traces). Setting ``BLT_PROFILE=<dir>`` wraps
 the tokenizer run in ``jax.profiler.trace`` so device kernels, transfers,
@@ -28,12 +28,8 @@ def maybe_profile() -> Iterator[None]:
     if not outdir:
         yield
         return
-    try:
-        import jax
-    except Exception as e:  # pragma: no cover - jax is a hard dep in practice
-        log.warning("BLT_PROFILE set but jax unavailable (%s); not tracing", e)
-        yield
-        return
+    import jax
+
     log.info("Writing JAX profiler trace to %s", outdir)
     with jax.profiler.trace(outdir):
         yield

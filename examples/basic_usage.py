@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""blt_tpu usage tour: the reference API surface plus the TPU-native extras.
+"""blt_tpu usage tour: the reference API surface plus the device extras.
 
 Covers the same ground as the reference's example
 (reference: blt_python/examples/basic_usage.py) — basic tokenization,

@@ -1,6 +1,6 @@
-"""Feeder pipeline primitives: prefetch_iter, BufferPool, pack_into.
+"""Feeder pipeline primitives: prefetch_iter, pack_into.
 
-These implement the TPU-native replacement for the reference's async
+These implement the device replacement for the reference's async
 chunk pipeline (reference: blt_core/src/pipeline.rs:56-131): bounded
 in-flight hand-off with exact ordering and error propagation.
 """
@@ -11,7 +11,7 @@ import time
 import numpy as np
 import pytest
 
-from blt_tpu.pipeline.feeder import BufferPool, pack_into, prefetch_iter
+from blt_tpu.pipeline.feeder import pack_into, prefetch_iter
 
 
 def test_prefetch_preserves_order():
@@ -73,15 +73,6 @@ def test_prefetch_early_abandon_unblocks_worker():
     # The generator may not run its finally (daemon thread parked in put),
     # but the thread must not hold the queue lock; a fresh iterator works.
     assert list(prefetch_iter(iter([1, 2]), depth=1)) == [1, 2]
-
-
-def test_buffer_pool_roundtrip():
-    pool = BufferPool(1024, count=2)
-    a = pool.get()
-    b = pool.get()
-    assert a.shape == (1024,) and b.shape == (1024,)
-    pool.put(a)
-    assert pool.get() is a
 
 
 @pytest.mark.parametrize("n", [0, 5, 1 << 22, (1 << 22) + 13])

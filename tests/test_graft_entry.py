@@ -17,3 +17,11 @@ def test_dryrun_multichip_8():
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
     graft.dryrun_multichip(8)
+
+
+def test_dryrun_multichip_fails_without_enough_devices(monkeypatch):
+    """Too few devices and no virtual-mesh flag: fail, never fall back to
+    CPU devices behind the caller's back."""
+    monkeypatch.setenv("XLA_FLAGS", "")
+    with pytest.raises(RuntimeError, match="needs 64 devices"):
+        graft.dryrun_multichip(64)

@@ -202,7 +202,6 @@ _WORKER = textwrap.dedent(
     """
     import sys
     import jax
-    jax.config.update("jax_platforms", "cpu")
     from blt_tpu.cli import main
     rc = main(sys.argv[1:])
     if rc == 0 and jax.process_count() != 2:
@@ -234,6 +233,7 @@ def test_two_process_distributed_matches_single(tmp_path, mode_args):
     def env_for(pid):
         env = dict(os.environ)
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        env["JAX_PLATFORMS"] = "cpu"
         env["BLT_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
         env["BLT_NUM_PROCESSES"] = "2"
         env["BLT_PROCESS_ID"] = str(pid)
@@ -258,7 +258,7 @@ def test_two_process_distributed_matches_single(tmp_path, mode_args):
     r = subprocess.run(
         [sys.executable, "-m", "blt_tpu.cli", "-i", str(ip), "-o", str(op_ref),
          "--type", "text"] + args,
-        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu", "BLT_PLATFORM": "cpu"},
+        env={**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"},
         capture_output=True,
         timeout=300,
     )
@@ -278,8 +278,7 @@ def test_two_process_distributed_decode(tmp_path):
     ip.write_bytes(data.tobytes())
     mp.write_text("".join(f"{a} {b}\n" for a, b in MERGES))
 
-    env1 = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu",
-            "BLT_PLATFORM": "cpu"}
+    env1 = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(
         [sys.executable, "-m", "blt_tpu.cli", "-i", str(ip), "-o", str(wire),
          "--type", "bin", "--merges", str(mp)],

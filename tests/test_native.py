@@ -8,7 +8,6 @@ import pytest
 from blt_tpu import native
 from blt_tpu.merges import MergeTable
 from blt_tpu.ops.bpe_numpy import bpe_encode_flat
-from blt_tpu.ops.bpe_pallas import filter_slots
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="libbltnative.so could not be built"
@@ -16,20 +15,34 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_ensure_built_self_builds(tmp_path, monkeypatch):
-    """A fresh checkout self-builds the .so on first load (atomic rename)."""
+    """A fresh checkout self-builds the .so on first load, keyed on its
+    source: a library built from another source is never loaded."""
+    import os
+    import shutil
+
     from blt_tpu.native import build as nb
 
     out = nb.ensure_built()
-    assert out is not None and out.endswith("libbltnative.so")
-    # stale .so (older than source) triggers a rebuild
-    import os
-
-    os.utime(out, (0, 0))
-    assert nb.ensure_built() == out
-    assert os.path.getmtime(out) >= os.path.getmtime(nb.SRC)
+    assert out is not None and out == nb.lib_path()
+    assert os.path.basename(out).startswith("libbltnative.")
+    # a private copy of the source: its own directory, its own key
+    src = tmp_path / "feeder.cpp"
+    shutil.copy(nb.SRC, src)
+    monkeypatch.setattr(nb, "DIR", str(tmp_path))
+    monkeypatch.setattr(nb, "SRC", str(src))
+    first = nb.ensure_built()
+    assert first is not None and first.startswith(str(tmp_path))
+    assert nb.ensure_built() == first  # fresh: no rebuild
+    # an edited source is a new key: rebuilt, and the stale library removed
+    src.write_text(src.read_text() + "\n// edited\n")
+    second = nb.ensure_built()
+    assert second is not None and second != first
+    assert os.path.exists(second) and not os.path.exists(first)
     # BLT_NATIVE_BUILD=0 suppresses building but keeps an existing lib
     monkeypatch.setenv("BLT_NATIVE_BUILD", "0")
-    assert nb.ensure_built() == out
+    assert nb.ensure_built() == second
+    src.write_text(src.read_text() + "// again\n")
+    assert nb.ensure_built() is None
 
 
 def test_widen_be():
@@ -61,16 +74,3 @@ def test_flat_bpe_vs_numpy_with_carries():
         o1, c1 = native.flat_bpe(data[:cut], table.dense, False, nb, 2)
         o2, _ = native.flat_bpe(data[cut:], table.dense, c1, -1, 2)
         assert bytes(o1) + bytes(o2) == expected
-
-
-def test_filter_slots_native_matches_python():
-    rng = np.random.default_rng(3)
-    for _ in range(30):
-        n = int(rng.integers(0, 3000))
-        slots = rng.integers(0, 65536, n).astype(np.uint16)
-        prev = int(rng.integers(0, 65536))
-        exp_toks, exp_last = filter_slots(slots, prev)
-        wire, last = native.filter_slots_native(slots, prev, 3)
-        assert wire == exp_toks.tobytes()
-        if n:
-            assert last == exp_last & 0xFFFF

@@ -199,7 +199,6 @@ def test_stdin_streaming_cli_parity(tmp_path):
     mp.write_text(MERGES_TEXT)
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env["BLT_PLATFORM"] = "cpu"
     r = subprocess.run(
         [sys.executable, "-m", "blt_tpu.cli", "--merges", str(mp),
          "--chunksize", "256KB"],
@@ -313,63 +312,53 @@ def test_e2e_fuzz_multiproc_bounded():
         fuzz_e2e.one_multiproc_trial(rng, t, max_bytes=50_000)
 
 
-def test_pallas_encoder_construction_failure_falls_back(monkeypatch):
-    """A PallasFlatEncoder construction failure must fall back to the XLA
-    path BEFORE any output is emitted (VERDICT r1 item 8)."""
-    import blt_tpu.ops.bpe_pallas as bp
+def test_probe_device_engine_raises_when_device_engine_fails(monkeypatch):
+    """Once JAX reports an accelerator, a failure to build the device
+    engine must raise, never hide behind a silent host run."""
+    from blt_tpu.pipeline import engines as eng
+
+    monkeypatch.setattr(eng, "backend_platform", lambda: "gpu")
+
+    def broken(*a, **k):
+        raise RuntimeError("device runtime broken")
+
+    monkeypatch.setattr(eng.JaxEngine, "__init__", broken)
+    monkeypatch.setattr(eng.ShardedJaxEngine, "__init__", broken)
+    with pytest.raises(RuntimeError, match="device runtime broken"):
+        eng._probe_device_engine()
+    with pytest.raises(RuntimeError, match="device runtime broken"):
+        eng.select_engine(Engine.AUTO, eng.AUTO_DEVICE_THRESHOLD)
+    # no accelerator: AUTO keeps the host engine, the probe builds nothing
+    monkeypatch.setattr(eng, "backend_platform", lambda: "cpu")
+    assert eng._probe_device_engine() is None
+    assert isinstance(
+        eng.select_engine(Engine.AUTO, eng.AUTO_DEVICE_THRESHOLD),
+        eng.NumpyEngine,
+    )
+
+
+def test_device_mid_stream_failure_raises(monkeypatch):
+    """A device fault after output has started must propagate, never
+    silently re-emit the stream through another path."""
+    from blt_tpu.ops import bpe_jax
     from blt_tpu.pipeline.engines import JaxEngine
 
-    engine = JaxEngine()
-    # pretend we are on a TPU so the Pallas branch is taken
-    class FakeJax:
-        def __getattr__(self, name):
-            import jax
+    real = bpe_jax.flat_encode
+    calls = {"n": 0}
 
-            return getattr(jax, name)
+    def faulty(*args, **kw):
+        calls["n"] += 1
+        if calls["n"] >= 3:
+            raise RuntimeError("device fault mid-stream")
+        return real(*args, **kw)
 
-        def default_backend(self):
-            return "tpu"
-
-    engine._jax = FakeJax()
-
-    class Exploding:
-        def __init__(self, *a, **k):
-            raise ValueError("construction failed")
-
-        @staticmethod
-        def supports(table):
-            return True
-
-    monkeypatch.setattr(bp, "PallasFlatEncoder", Exploding)
+    monkeypatch.setattr(bpe_jax, "flat_encode", faulty)
+    engine = JaxEngine(depth=0)
     table = MergeTable.build(MERGES)
-    data = np.frombuffer(b"abcabcab" * 100, np.uint8)
-    out = b"".join(engine.bpe_stream(iter([data]), table, 1024))
-    assert out == expected_bpe(data.tobytes())
-
-
-def test_pallas_mid_stream_failure_raises():
-    """A failure after the encoder is built must propagate, never silently
-    re-emit the stream through another path (VERDICT r1 item 8)."""
-    from blt_tpu.pipeline.engines import JaxEngine
-
-    engine = JaxEngine()
-
-    class MidStreamFault:
-        calls = 0
-        padded_bytes = 1024
-
-        def upload(self, data, buf, threads=0):
-            return data, data.shape[0]
-
-        def encode_device(self, dev, n, carry, next_byte):
-            MidStreamFault.calls += 1
-            if MidStreamFault.calls >= 2:
-                raise RuntimeError("device fault mid-stream")
-            slots = dev.astype(np.uint16) << 8  # byteswapped passthrough
-            return slots, n, False
-
-    chunks = [np.frombuffer(b"abcd", np.uint8)] * 4
-    stream = engine._bpe_pallas_stream(iter(chunks), MidStreamFault(), 4)
+    chunks = [np.frombuffer(b"abcabcab", np.uint8)] * 6
+    stream = engine.bpe_stream(iter(chunks), table, 8)
+    first = next(stream)  # output has started
+    assert bytes(first) == expected_bpe(b"abcabcab")[: len(bytes(first))]
     with pytest.raises(RuntimeError, match="device fault mid-stream"):
         list(stream)
 
@@ -386,7 +375,7 @@ def test_auto_stream_small_pipe_stays_numpy():
 
 def test_auto_stream_large_pipe_selects_device(monkeypatch):
     """A pipe crossing the AUTO threshold must commit to the device engine
-    when an accelerator is present (VERDICT r1 item 10), with no bytes lost
+    when an accelerator is present, with no bytes lost
     or re-emitted around the switch."""
     from blt_tpu.pipeline import engines as eng
 
@@ -422,7 +411,7 @@ def test_auto_engine_selection_for_streams():
 
 def test_auto_stream_peek_honors_memcap(monkeypatch):
     """The AUTO selection peek buffers at most min(32MB, memcap budget)
-    bytes (VERDICT r4 item 8): with a small budget, the engine must commit
+    bytes: with a small budget, the engine must commit
     after the budget's worth of chunks, not after the full 32MB default."""
     from blt_tpu.pipeline import engines as eng
 
@@ -467,213 +456,22 @@ def test_auto_stream_peek_honors_memcap(monkeypatch):
     assert eng.AutoStreamEngine().peek_threshold == eng.AUTO_DEVICE_THRESHOLD
 
 
-def test_flat_d2h_mode_warns_on_unknown(monkeypatch):
-    """An unrecognized BLT_D2H value must not silently run 'packed'
-    (ADVICE r4): the coercion is logged so a typo'd opt-out is visible.
-    (The blt_tpu logger doesn't propagate to the root, so capture with an
-    explicit handler rather than caplog.)"""
-    import logging
-
-    from blt_tpu.pipeline import engines as eng
-
-    records = []
-
-    class Capture(logging.Handler):
-        def emit(self, record):
-            records.append(record.getMessage())
-
-    logger = logging.getLogger("blt_tpu.engine")
-    handler = Capture(level=logging.WARNING)
-    logger.addHandler(handler)
-    old_level = logger.level
-    logger.setLevel(logging.WARNING)
-    try:
-        monkeypatch.setenv("BLT_D2H", "slot")  # typo for 'slots'
-        monkeypatch.delenv("BLT_DEVICE_COMPACT", raising=False)
-        assert eng._flat_d2h_mode() == "packed"
-        assert any("BLT_D2H" in m for m in records)
-
-        records.clear()
-        monkeypatch.setenv("BLT_D2H", "slots")
-        assert eng._flat_d2h_mode() == "slots"
-        assert not records
-    finally:
-        logger.removeHandler(handler)
-        logger.setLevel(old_level)
-
-
 def test_plan_feed_size_full_batches_and_ladder():
-    """r5 policy: full device-sized batches (one compile shape shared by
-    every large run) + ladder-bucketed tails in the ENGINE — the compile
-    shape space is fixed instead of minting a kernel per file size
-    (VERDICT r4 item 2), while tail padding stays <= one ladder step."""
-    from blt_tpu.pipeline.engines import bucket_feed
+    """Full device-sized batches: one compile shape shared by every large
+    run, instead of a device program per file size."""
     from blt_tpu.pipeline.runner import _plan_feed_size
 
     mb = 1024 * 1024
     # large file: full 16MB batches regardless of exact size
     assert _plan_feed_size(100 * mb, 16 * mb, 16 * mb) == 16 * mb
     assert _plan_feed_size(100 * mb + 5, 16 * mb, 16 * mb) == 16 * mb
-    # small file: one batch; the ENGINE buckets the capacity
+    # small file: one batch of the same shape
     assert _plan_feed_size(10 * mb, 16 * mb, 16 * mb) == 16 * mb
     # an explicit larger --chunksize raises the batch size
     assert _plan_feed_size(100 * mb, 32 * mb, 16 * mb) == 32 * mb
     # unknown size (stdin): fall back to max(chunk, dev)
     assert _plan_feed_size(None, 4 * mb, 16 * mb) == 16 * mb
     assert _plan_feed_size(0, 32 * mb, 16 * mb) == 32 * mb
-
-    # the ladder: pow2 to 1MB, 1MB steps to 16MB, pow2 beyond
-    assert bucket_feed(1) == 64 * 1024
-    assert bucket_feed(64 * 1024) == 64 * 1024
-    assert bucket_feed(64 * 1024 + 1) == 128 * 1024
-    assert bucket_feed(900 * 1024) == mb
-    assert bucket_feed(mb + 1) == 2 * mb
-    assert bucket_feed(int(4.2 * mb)) == 5 * mb
-    assert bucket_feed(16 * mb) == 16 * mb
-    # above 16MB (custom batch sizes): 2MB steps, not pow2 — a 17MB
-    # batch must not pay a 32MB capacity on every full batch
-    assert bucket_feed(16 * mb + 1) == 18 * mb
-    assert bucket_feed(17 * mb) == 18 * mb
-    assert bucket_feed(64 * mb) == 64 * mb
-    # ladder is small: every capacity <= 16MB comes from <= 20 shapes
-    caps = {bucket_feed(n) for n in range(1, 16 * mb, 37 * 1024)}
-    assert len(caps) <= 20
-
-
-def test_jax_engine_tail_bucket_encoders(monkeypatch):
-    """A stream whose final chunk is short must route it through a
-    smaller ladder-bucket encoder (not pad to the full batch capacity),
-    with the cross-batch carry chain intact across the encoder switch."""
-    from blt_tpu.merges import MergeTable as MT
-    from blt_tpu.ops import bpe_pallas
-    from blt_tpu.ops.bpe_numpy import bpe_encode_flat
-    from blt_tpu.pipeline.engines import JaxEngine
-
-    engine = JaxEngine()
-
-    class FakeJax:
-        def __getattr__(self, name):
-            import jax
-
-            return getattr(jax, name)
-
-        def default_backend(self):
-            return "tpu"
-
-    engine._jax = FakeJax()
-    built = []
-    orig_init = bpe_pallas.PallasFlatEncoder.__init__
-
-    def counting_init(self, table, interpret=False, capacity_bytes=0,
-                      rows_per_block=None, force_mode=None):
-        built.append(capacity_bytes)
-        # interpret mode: the compiled kernel cannot lower on CPU
-        orig_init(self, table, interpret=True,
-                  capacity_bytes=capacity_bytes,
-                  rows_per_block=rows_per_block, force_mode=force_mode)
-
-    monkeypatch.setattr(
-        bpe_pallas.PallasFlatEncoder, "__init__", counting_init
-    )
-    t = MT.build({(97, 98): 300, (98, 99): 301})
-    rng = np.random.default_rng(11)
-    full = 128 * 1024  # one ladder bucket exactly
-    data = rng.choice(
-        np.frombuffer(b"abcabcxy", np.uint8), 2 * full + 70 * 1024
-    ).astype(np.uint8)
-    chunks = [data[:full], data[full : 2 * full], data[2 * full :]]
-    out = b"".join(
-        bytes(x) for x in engine.bpe_stream(iter(chunks), t, full)
-    )
-    exp = np.asarray(
-        bpe_encode_flat(data, t), np.uint16
-    ).astype(">u2").tobytes()
-    assert out == exp
-    # two capacities: the full 128KB bucket and the 128KB tail bucket
-    # (70KB -> 128KB): here they collide into one bucket, so force a
-    # distinct tail: rerun with a 33KB tail -> 64KB bucket
-    built.clear()
-    data2 = data[: 2 * full + 33 * 1024]
-    chunks2 = [data2[:full], data2[full : 2 * full], data2[2 * full :]]
-    out2 = b"".join(
-        bytes(x) for x in engine.bpe_stream(iter(chunks2), t, full)
-    )
-    exp2 = np.asarray(
-        bpe_encode_flat(data2, t), np.uint16
-    ).astype(">u2").tobytes()
-    assert out2 == exp2
-    assert sorted(set(built)) == [64 * 1024, 128 * 1024]
-
-
-def test_warmup_module_and_env_hook(tmp_path, monkeypatch):
-    """BLT_WARMUP wiring: the bucket grid is the serving grid, warm_shapes
-    is a no-op off-TPU (compiles are cheap there), and a run with the env
-    set completes byte-identically."""
-    from blt_tpu.config import CoreConfig, Engine, Mode
-    from blt_tpu.pipeline.runner import run_tokenizer
-    from blt_tpu.warmup import pow2_buckets, warm_for_run, warm_shapes
-
-    assert pow2_buckets(16 * 1024 * 1024)[0] == 64 * 1024
-    assert pow2_buckets(16 * 1024 * 1024)[-1] == 16 * 1024 * 1024
-    assert len(pow2_buckets(16 * 1024 * 1024)) == 9
-    # off-TPU: no shapes touched, never raises (full grid included)
-    assert warm_shapes(Mode.BASIC, None, [1 << 20]) == 0
-    assert warm_for_run(Mode.BASIC, None, 1 << 20, 16 << 20) == 0
-    assert warm_for_run(Mode.BASIC, None, 1 << 20, 16 << 20, full=True) == 0
-
-    monkeypatch.setenv("BLT_WARMUP", "1")
-    ip = tmp_path / "in.bin"
-    op = tmp_path / "out.bin"
-    ip.write_bytes(b"hello warm")
-    run_tokenizer(CoreConfig.new_from_cli(
-        input=ip, output=op, engine=Engine.JAX
-    ))
-    expected = b"".join(bytes([0, c]) for c in b"hello warm")
-    assert op.read_bytes() == expected
-
-
-def test_warmup_ladder_buckets_cover_dispatchable_shapes():
-    """BLT_WARMUP=full must seed every shape the pipeline can dispatch:
-    the pow2 serving grid plus the 1MB-step tail ladder."""
-    from blt_tpu.pipeline.engines import bucket_feed
-    from blt_tpu.warmup import ladder_buckets
-
-    mb = 1 << 20
-    shapes = ladder_buckets(16 * mb)
-    # every tail bucket for any size <= 16MB is in the warm set
-    for n in (1, 100 * 1024, 700 * 1024, mb + 1, int(4.7 * mb), 16 * mb):
-        assert bucket_feed(n) in shapes, n
-    # pow2 serving buckets included
-    assert 64 * 1024 in shapes and 8 * mb in shapes
-    assert len(shapes) <= 24
-
-
-def test_stream_bucket_cap_bounds_mid_stream_compiles():
-    """Pipe sources can read short anywhere; beyond _MAX_STREAM_BUCKETS
-    distinct shapes, odd chunk sizes pad into an existing bucket instead
-    of minting another mid-stream kernel compile."""
-    from blt_tpu.pipeline.engines import (
-        _MAX_STREAM_BUCKETS,
-        _stream_bucket,
-        bucket_feed,
-    )
-
-    encoders = {}
-    sizes = [3 << 20, 7 << 20, 12 << 20, 5 << 20, 9 << 20, 1 << 20]
-    minted = []
-    for n in sizes:
-        cap = _stream_bucket(n, encoders)
-        assert cap >= n  # must always hold the chunk
-        if cap not in encoders:
-            encoders[cap] = object()
-            minted.append(cap)
-    assert len(minted) == _MAX_STREAM_BUCKETS
-    # under the cap, exact ladder buckets are used
-    assert minted[:3] == [bucket_feed(s) for s in sizes[:3]]
-    # a chunk larger than every existing bucket still gets a new shape
-    # (correctness over compile avoidance)
-    cap = _stream_bucket(15 << 20, encoders)
-    assert cap == bucket_feed(15 << 20)
 
 
 def test_payload_auto_engine_probe_is_single_flight(monkeypatch):

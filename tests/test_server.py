@@ -124,7 +124,7 @@ def test_server_engine_option_jax():
 
 def test_device_capacity_hint_buckets():
     """Device engines bucket capacity to powers of two (>= 64KB floor);
-    host engines keep the exact size (VERDICT r2: serving recompiles)."""
+    host engines keep the exact size."""
     from blt_tpu.pipeline.engines import DEVICE_HINT_FLOOR, device_capacity_hint
 
     class Dev:
@@ -201,7 +201,7 @@ def test_server_warmup_compiles_each_bucket():
 def test_server_engine_auto_routes_by_payload_size(monkeypatch):
     """--engine auto applies the CLI's AUTO policy per request: payloads
     below the threshold serve on the host engine, larger ones on the
-    device engine (VERDICT r4 item 7)."""
+    device engine."""
     import numpy as np
 
     from blt_tpu.pipeline import engines as eng

@@ -1,4 +1,4 @@
-"""Multi-chip sharding tests on an 8-virtual-device CPU mesh.
+"""Multi-device sharding tests on an 8-virtual-device CPU mesh.
 
 The reference has no distributed layer (SURVEY.md 2); these tests pin the
 BASELINE.json north-star behaviors: row-sharded corpus, replicated merges,
@@ -19,9 +19,14 @@ from blt_tpu.parallel.sharded import (
     sharded_flat_encode,
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 2, reason="needs multiple (virtual) devices"
-)
+
+
+@pytest.fixture(autouse=True)
+def _multi_device():
+    # decided per test, never at import: every xdist worker collects the
+    # same tests whatever its backend
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multiple (virtual) devices")
 
 MERGES = {(97, 98): 256, (98, 99): 257, (99, 97): 258, (97, 97): 259}
 
@@ -324,270 +329,3 @@ def test_sharded_engine_stream_short_reads_carry(tmp_path, monkeypatch):
     run_tokenizer(CoreConfig.new_from_cli(
         input=ip, output=op2, merges=mp, engine=Engine.NUMPY))
     assert op1.read_bytes() == op2.read_bytes()
-
-
-class TestShardedTokenEncoder:
-    """Row-parallel Pallas multipass over the mesh (interpret mode)."""
-
-    def test_encode_batch_matches_oracle(self):
-        from blt_tpu.merges import MergeTable
-        from blt_tpu.ops.bpe_oracle import bpe_encode_oracle
-        from blt_tpu.ops.bpe_pallas import ShardedTokenEncoder
-        from blt_tpu.parallel.mesh import make_mesh
-
-        merges = {(97, 98): 256, (256, 99): 257, (257, 257): 258}
-        table = MergeTable.build(merges)
-        assert ShardedTokenEncoder.supports(table)
-        mesh = make_mesh()
-        rng = np.random.default_rng(13)
-        chunks = [
-            rng.choice(np.frombuffer(b"abcabcde", np.uint8), size=s)
-            for s in (1500, 3000, 1, 2, 700, 2048, 999, 10)
-        ]
-        enc = ShardedTokenEncoder(
-            table, mesh, interpret=True, capacity_tokens=4096,
-            rows_per_block=8,
-        )
-        got = enc.encode_batch(chunks)
-        for chunk, toks in zip(chunks, got):
-            expected = bpe_encode_oracle(chunk.tobytes(), merges)
-            assert toks.tolist() == list(expected), chunk.shape
-
-    def test_sharded_engine_multipass_pallas_route(self, monkeypatch):
-        """The shard engine must route hierarchical tables through the
-        Pallas path on TPU backends (VERDICT r1 item 5)."""
-        from blt_tpu.merges import MergeTable
-        from blt_tpu.pipeline import engines as eng
-
-        engine = eng.ShardedJaxEngine()
-
-        class FakeJax:
-            def __getattr__(self, name):
-                import jax
-
-                return getattr(jax, name)
-
-            def default_backend(self):
-                return "tpu"
-
-        engine._jax = FakeJax()
-        monkeypatch.setattr(engine, "_mesh_platform", lambda: "tpu")
-        called = {}
-
-        def fake_pallas(chunks, table, hint):
-            called["pallas"] = True
-            yield b""
-
-        monkeypatch.setattr(
-            engine, "_bpe_multipass_sharded_pallas", fake_pallas
-        )
-        table = MergeTable.build({(97, 98): 256, (256, 99): 257})
-        list(engine.bpe_stream(iter([np.zeros(4, np.uint8)]), table, 1024))
-        assert called.get("pallas")
-
-
-def test_sharded_resident_encode_batch_matches_oracle():
-    """Per-device device-resident multipass loops (shard_map around
-    lax.while_loop; divergent trip counts across devices) must equal
-    the oracle and the host-compaction batch encoder."""
-    from blt_tpu.merges import MergeTable
-    from blt_tpu.ops.bpe_oracle import bpe_encode_oracle
-    from blt_tpu.ops.bpe_pallas import ShardedTokenEncoder
-    from blt_tpu.parallel.mesh import make_mesh
-
-    merges = {(97, 98): 256, (256, 99): 257, (257, 257): 258}
-    table = MergeTable.build(merges)
-    mesh = make_mesh()
-    rng = np.random.default_rng(23)
-    # heterogeneous pass counts per device: all-'a'-style runs vs noise
-    chunks = [
-        rng.choice(np.frombuffer(b"abcabcde", np.uint8), size=s)
-        for s in (2048, 1, 0, 700, 4096, 33, 999, 2)
-    ][: len(jax.devices())]
-    enc = ShardedTokenEncoder(
-        table, mesh, interpret=True, capacity_tokens=4096, rows_per_block=8
-    )
-    got = enc.encode_batch_resident(chunks)
-    ref = enc.encode_batch(chunks)
-    for chunk, toks, toks2 in zip(chunks, got, ref):
-        expected = list(bpe_encode_oracle(chunk.tobytes(), merges))
-        assert toks.tolist() == expected, chunk.shape
-        assert toks2.tolist() == expected, chunk.shape
-
-
-class TestShardedFlatEncoder:
-    """Halo-convergence Pallas flat sharding (interpret mode on the CPU
-    mesh; the compiled kernel itself is certified on hardware by bench.py
-    and the engine route by the driver dryrun)."""
-
-    TABLE = MergeTable.build(
-        {(97, 98): 256, (98, 99): 257, (99, 97): 258, (97, 97): 259}
-    )
-
-    def _encoder(self, mesh):
-        from blt_tpu.ops.bpe_pallas import ShardedFlatEncoder
-
-        # tiny blocks keep interpret mode fast: block = 8*128 = 1KB,
-        # capacity 2KB => payload 1KB per device per batch
-        return ShardedFlatEncoder(
-            self.TABLE,
-            mesh,
-            interpret=True,
-            capacity_bytes=2048,
-            rows_per_block=8,
-        )
-
-    def test_halo_converges(self):
-        from blt_tpu.ops.bpe_pallas import ShardedFlatEncoder
-
-        dense = self.TABLE.dense
-        allmatch = np.frombuffer(b"aa" * 600, np.uint8)  # (97,97) rule
-        assert not ShardedFlatEncoder.halo_converges(dense, allmatch)
-        mixed = np.frombuffer(b"aa" * 500 + b"zz" + b"aa" * 99, np.uint8)
-        assert ShardedFlatEncoder.halo_converges(dense, mixed)
-        # empty/1-byte halo = stream start
-        assert ShardedFlatEncoder.halo_converges(dense, np.empty(0, np.uint8))
-
-    @pytest.mark.parametrize("d2h", ["packed", "slots"])
-    def test_engine_halo_stream_exact(self, mesh, d2h, monkeypatch):
-        """Multi-batch random stream through the engine's halo route,
-        byte-equal to the host oracle wire (both D2H formats)."""
-        from blt_tpu.pipeline.engines import ShardedJaxEngine
-
-        monkeypatch.setenv("BLT_D2H", d2h)
-        eng = ShardedJaxEngine(mesh=mesh)
-        enc = self._encoder(mesh)
-        rng = np.random.default_rng(11)
-        corpus = rng.choice(
-            np.frombuffer(b"abcabcaabbccaaaa zqx", np.uint8), size=33000
-        ).astype(np.uint8)
-        hint = enc.payload * enc.n_rows  # full batches
-        # irregular chunk sizes (each <= hint, the runner's contract)
-        # exercise partial batches + tail halos
-        cuts = [0, hint, 2 * hint - 517, 3 * hint - 517, 4 * hint - 517,
-                corpus.shape[0]]
-        chunks = [corpus[a:b] for a, b in zip(cuts, cuts[1:])]
-        assert all(c.shape[0] <= hint for c in chunks)
-        wire = b"".join(
-            eng._bpe_flat_halo_stream(iter(chunks), self.TABLE, enc, hint)
-        )
-        expected = bpe_numpy.bpe_encode_flat(corpus, self.TABLE)
-        got = np.frombuffer(wire, ">u2").astype(np.int64)
-        assert got.tolist() == expected.tolist()
-
-    @pytest.mark.parametrize("d2h", ["packed", "slots"])
-    def test_engine_halo_stream_degenerate_fallback(
-        self, mesh, d2h, monkeypatch
-    ):
-        """A >=HALO all-match run across a slab boundary must route that
-        batch through the exact XLA path — and stay byte-exact (in packed
-        mode this crosses BOTH emission-convention bridges: packed->XLA
-        lo-byte prefix and XLA->packed first-position skip)."""
-        import blt_tpu.parallel.sharded as sharded_mod
-        from blt_tpu.pipeline.engines import ShardedJaxEngine
-
-        monkeypatch.setenv("BLT_D2H", d2h)
-        eng = ShardedJaxEngine(mesh=mesh)
-        enc = self._encoder(mesh)
-        hint = enc.payload * enc.n_rows
-        corpus = np.concatenate(
-            [
-                np.frombuffer(b"abc" * 400, np.uint8),
-                np.frombuffer(b"aa" * 3000, np.uint8),  # spans boundaries
-                np.frombuffer(b"cab" * 400, np.uint8),
-            ]
-        )
-        calls = {"n": 0}
-        real = sharded_mod.sharded_flat_encode
-
-        def spy(*a, **k):
-            calls["n"] += 1
-            return real(*a, **k)
-
-        monkeypatch.setattr(sharded_mod, "sharded_flat_encode", spy)
-        chunks = [corpus[i : i + hint] for i in range(0, corpus.shape[0], hint)]
-        wire = b"".join(
-            eng._bpe_flat_halo_stream(iter(chunks), self.TABLE, enc, hint)
-        )
-        expected = bpe_numpy.bpe_encode_flat(corpus, self.TABLE)
-        got = np.frombuffer(wire, ">u2").astype(np.int64)
-        assert got.tolist() == expected.tolist()
-        assert calls["n"] >= 1  # the degenerate batch actually fell back
-
-    @pytest.mark.parametrize("d2h", ["packed", "slots"])
-    def test_engine_halo_stream_pending_carry_transitions(
-        self, mesh, d2h, monkeypatch
-    ):
-        """Deterministic pending-merge carries across BOTH mode
-        transitions: a packed batch ends mid-merge into a degenerate
-        (XLA) batch — bridge rule 2 must prepend the lo byte — and that
-        XLA batch ends mid-merge into a converging packed batch — bridge
-        rule 1 must skip the re-emitted first position."""
-        import blt_tpu.parallel.sharded as sharded_mod
-        from blt_tpu.pipeline.engines import ShardedJaxEngine
-
-        monkeypatch.setenv("BLT_D2H", d2h)
-        eng = ShardedJaxEngine(mesh=mesh)
-        enc = self._encoder(mesh)
-        hint = enc.payload * enc.n_rows
-        H = enc.HALO
-        filler = np.frombuffer(
-            b"zq" * ((hint - H - 1) // 2) + b"z", np.uint8
-        )
-        # batch0 (pallas): filler then an ODD run of a's >= H+1 — its last
-        # 'a' starts a (97,97) merge consuming batch1's first byte, and
-        # batch1's slab-0 halo (all a's) is degenerate
-        b0 = np.concatenate(
-            [filler, np.frombuffer(b"a" * (hint - filler.size), np.uint8)]
-        )
-        assert (hint - filler.size) >= H + 1 and (hint - filler.size) % 2 == 1
-        # batch1 (XLA): a's with a 'z' break near the end, ending in a
-        # single 'a' that starts a merge into batch2 (carry_out true) while
-        # leaving a non-match inside batch2's slab-0 halo (so it converges)
-        b1 = np.frombuffer(b"a" * (hint - 2) + b"za", np.uint8)
-        # batch2 (pallas again): first byte is the consumed half
-        b2 = np.concatenate(
-            [np.frombuffer(b"a", np.uint8), filler[: 4096 - 1]]
-        )
-        corpus = np.concatenate([b0, b1, b2])
-
-        calls = {"n": 0}
-        real = sharded_mod.sharded_flat_encode
-
-        def spy(*a, **k):
-            calls["n"] += 1
-            return real(*a, **k)
-
-        monkeypatch.setattr(sharded_mod, "sharded_flat_encode", spy)
-        wire = b"".join(
-            eng._bpe_flat_halo_stream(iter([b0, b1, b2]), self.TABLE, enc, hint)
-        )
-        expected = bpe_numpy.bpe_encode_flat(corpus, self.TABLE)
-        got = np.frombuffer(wire, ">u2").astype(np.int64)
-        assert got.tolist() == expected.tolist()
-        assert calls["n"] == 1  # exactly the middle batch fell back
-
-    def test_engine_halo_stream_ffff_and_boundary_merges(self, mesh):
-        """FF-FF rule + merges landing exactly on slab boundaries."""
-        from blt_tpu.ops.bpe_pallas import ShardedFlatEncoder
-        from blt_tpu.pipeline.engines import ShardedJaxEngine
-
-        table = MergeTable.build(
-            {(255, 255): 0xFFFF, (97, 98): 300, (98, 97): 301}
-        )
-        eng = ShardedJaxEngine(mesh=mesh)
-        enc = ShardedFlatEncoder(
-            table, mesh, interpret=True, capacity_bytes=2048, rows_per_block=8
-        )
-        hint = enc.payload * enc.n_rows
-        rng = np.random.default_rng(5)
-        corpus = rng.choice(
-            np.frombuffer(b"ababbaz\xff\xff\xff", np.uint8), size=2 * hint + 77
-        ).astype(np.uint8)
-        chunks = [corpus[i : i + hint] for i in range(0, corpus.shape[0], hint)]
-        wire = b"".join(
-            eng._bpe_flat_halo_stream(iter(chunks), table, enc, hint)
-        )
-        expected = bpe_numpy.bpe_encode_flat(corpus, table)
-        got = np.frombuffer(wire, ">u2").astype(np.int64)
-        assert got.tolist() == expected.tolist()

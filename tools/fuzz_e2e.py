@@ -116,93 +116,6 @@ def one_trial(rng: np.random.Generator, trial: int, max_bytes: int) -> None:
                 f"chunk={chunksize}: {len(got)} vs {len(expected)} bytes"
             )
 
-    # Pallas flat kernel in interpreter mode (the CPU fuzz engines never
-    # exercise the TPU kernel path; the FF-FF cuckoo false-hit survived
-    # round 1 exactly because of that gap). Bounded: interpret mode is slow.
-    if flat and merges and 0 < len(data) <= 8192:
-        from blt_tpu.ops.bpe_pallas import PallasFlatEncoder, filter_slots
-
-        if PallasFlatEncoder.supports(table):
-            try:
-                enc = PallasFlatEncoder(
-                    table, capacity_bytes=1 << 14, interpret=True
-                )
-            except ValueError:
-                enc = None
-            if enc is not None:
-                arr = np.frombuffer(data, np.uint8)
-                s, _, _ = enc.encode(arr, False, -1)
-                toks_be, _ = filter_slots(
-                    np.asarray(s).reshape(-1)[: arr.shape[0]], 0
-                )
-                got = header + bytes(memoryview(toks_be).cast("B"))
-                want = header + tokens_to_be_bytes(bpe_encode_oracle(data, merges))
-                assert got == want, (
-                    f"trial {trial}: interpret-mode Pallas kernel mismatch "
-                    f"({len(got)} vs {len(want)} bytes)"
-                )
-
-    # halo-convergence sharded flat engine (interpret mode over the
-    # virtual mesh): exercises slab packing, convergence detection, the
-    # degenerate-run XLA fallback, and the stateless per-slab drain
-    # across random chunkings. Bounded: every 4th eligible trial.
-    if flat and merges and 0 < len(data) <= 16384 and trial % 4 == 0:
-        import jax
-
-        if len(jax.devices()) > 1:
-            from blt_tpu.ops.bpe_pallas import ShardedFlatEncoder
-            from blt_tpu.parallel.mesh import make_mesh
-            from blt_tpu.pipeline.engines import ShardedJaxEngine
-
-            if ShardedFlatEncoder.supports(table):
-                try:
-                    enc = ShardedFlatEncoder(
-                        table,
-                        make_mesh(),
-                        interpret=True,
-                        capacity_bytes=2048,
-                        rows_per_block=8,
-                    )
-                except ValueError:
-                    enc = None
-                if enc is not None:
-                    eng = ShardedJaxEngine(mesh=enc.mesh)
-                    hint = enc.payload * enc.n_rows
-                    arr = np.frombuffer(data, np.uint8)
-                    step = int(rng.integers(1, hint + 1))
-                    chunks = [
-                        arr[i : i + step] for i in range(0, arr.shape[0], step)
-                    ]
-                    wire = b"".join(
-                        eng._bpe_flat_halo_stream(
-                            iter(chunks), table, enc, hint
-                        )
-                    )
-                    want = tokens_to_be_bytes(bpe_encode_oracle(data, merges))
-                    assert wire == want, (
-                        f"trial {trial}: halo-sharded flat engine mismatch "
-                        f"({len(wire)} vs {len(want)} bytes, step={step})"
-                    )
-
-    # device-resident multipass in interpreter mode (same blind-spot
-    # closure for the token-pass kernel + while_loop + sort compaction:
-    # the CPU engines route hierarchical tables through XLA, so this
-    # device path is otherwise never fuzzed). Bounded for speed.
-    if merges and 0 < len(data) <= 4096:
-        from blt_tpu.ops.bpe_pallas import PallasTokenEncoder
-
-        if PallasTokenEncoder.supports(table):
-            enc = PallasTokenEncoder(table, interpret=True)
-            arr = np.frombuffer(data, np.uint8)
-            got_t = enc.encode_resident(arr).tolist()
-            # per-chunk = whole-input here (single chunk)
-            want_t = list(bpe_encode_oracle(data, merges))
-            assert got_t == want_t, (
-                f"trial {trial}: interpret-mode resident multipass "
-                f"mismatch ({len(got_t)} vs {len(want_t)} tokens, "
-                f"rules={len(merges)} flat={flat})"
-            )
-
     # decode roundtrip: every invertible fuzzed table must satisfy
     # decode(encode(x)) == x through the real pipeline (ops/decode.py).
     # Fuzzed values are unique and >= 256, so invertibility only depends
@@ -256,7 +169,6 @@ def one_trial(rng: np.random.Generator, trial: int, max_bytes: int) -> None:
 _MP_WORKER = """
 import json, sys
 import jax
-jax.config.update("jax_platforms", "cpu")
 spec = json.loads(sys.argv[1])
 from blt_tpu.config import ContentType, CoreConfig, Engine
 from blt_tpu.pipeline.runner import run_tokenizer
@@ -276,7 +188,7 @@ assert jax.process_count() == spec["nproc"], jax.process_count()
 def one_multiproc_trial(
     rng: np.random.Generator, trial: int, max_bytes: int = 100_000
 ) -> None:
-    """REAL multi-process execution leg (VERDICT r2 item 8).
+    """REAL multi-process execution leg.
 
     Launches nproc actual ``jax.distributed`` CPU processes through the
     public runner (random corpus / table incl. hierarchical / mode incl.
@@ -308,6 +220,7 @@ def one_multiproc_trial(
         def env_for(pid):
             env = dict(os.environ)
             env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+            env["JAX_PLATFORMS"] = "cpu"
             env["BLT_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
             env["BLT_NUM_PROCESSES"] = str(nproc)
             env["BLT_PROCESS_ID"] = str(pid)
@@ -419,9 +332,6 @@ def main() -> int:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=8"
         ).strip()
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
     rng = np.random.default_rng(args.seed)
     for t in range(args.trials):
